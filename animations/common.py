@@ -17,8 +17,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax.numpy as jnp
 
-import gendr_tpu
-from gendr_tpu import data
+import gendr_jax
+from gendr_jax import data
 
 # the reference's canonical distribution sweep (panda_dist.py:50-61)
 SIGMOID_FUNCTIONS = [
@@ -50,25 +50,23 @@ def triangle_scene():
     verts = np.array([[-0.6, -0.5, 2.0], [0.7, -0.4, 2.5],
                       [0.0, 0.7, 3.0]], np.float32)
     faces = np.array([[0, 1, 2]], np.int32)
-    return gendr_tpu.Mesh.create(verts, faces)
+    return gendr_jax.Mesh.create(verts, faces)
 
 
 def textured_scene(texture_res=5):
     """Stand-in for the textured panda: a textured icosphere with a
     procedural color pattern (the reference's panda OBJ is a binary asset;
     pass GENDR_PANDA_OBJ to use a real mesh)."""
-    path = os.environ.get('GENDR_PANDA_OBJ',
-                          '/root/reference/animations/panda/'
-                          'Origami_Panda.obj')
-    if os.path.exists(path):
-        mesh = gendr_tpu.Mesh.from_obj(path, load_texture=True,
+    path = os.environ.get('GENDR_PANDA_OBJ')
+    if path and os.path.exists(path):
+        mesh = gendr_jax.Mesh.from_obj(path, load_texture=True,
                                        texture_res=texture_res,
                                        texture_type='surface')
         v = np.asarray(mesh.vertices)
         v = v - v[0].min(0)[None, None]
         v = v / np.abs(v).max()
         v = v * 2 - v[0].max(0)[None, None]
-        return gendr_tpu.Mesh.create(v[0], mesh.faces[0], mesh.textures,
+        return gendr_jax.Mesh.create(v[0], mesh.faces[0], mesh.textures,
                                      texture_res, 'surface')
     v, f = data.icosphere(3)
     nf = f.shape[0]
@@ -77,7 +75,7 @@ def textured_scene(texture_res=5):
     tex[:, :, 0] = 0.5 + 0.5 * np.sin(6 * centers[:, 0])[:, None]
     tex[:, :, 1] = 0.5 + 0.5 * np.cos(6 * centers[:, 1])[:, None]
     tex[:, :, 2] = 0.6
-    return gendr_tpu.Mesh.create(v * 0.8, f, tex[None], texture_res,
+    return gendr_jax.Mesh.create(v * 0.8, f, tex[None], texture_res,
                                  'surface')
 
 

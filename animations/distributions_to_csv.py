@@ -3,7 +3,7 @@
 Counterpart of animations/distributions_to_csv.py — the reference's
 golden-value harness for the function zoo, built on its scalar pybind
 exports (generalized_renderer_cuda.cpp:195-237).  Ours evaluates the same
-functions through gendr_tpu.ops.distributions.sigmoid_forward/backward,
+functions through gendr_jax.ops.distributions.sigmoid_forward/backward,
 with the same per-distribution x rescalings.
 """
 
@@ -16,8 +16,8 @@ import numpy as np
 sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
-from gendr_tpu import config as C
-from gendr_tpu.ops.distributions import sigmoid_forward, sigmoid_backward
+from gendr_jax import config as C
+from gendr_jax.ops.distributions import sigmoid_forward, sigmoid_backward
 from animations.common import SIGMOID_FUNCTIONS
 
 

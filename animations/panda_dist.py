@@ -19,7 +19,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 import jax.numpy as jnp
 
-import gendr_tpu
+import gendr_jax
 from animations.common import (SIGMOID_FUNCTIONS, textured_scene,
                                composite_on_background, save_png)
 
@@ -33,12 +33,11 @@ def main():
     ap.add_argument('--backend', type=str, default=None)
     args = ap.parse_args()
 
-    backend = args.backend or (
-        'pallas' if jax.devices()[0].platform == 'tpu' else 'xla')
+    backend = args.backend  # None: the platform's own raster backend
 
     mesh = textured_scene(args.texture_res)
-    transform = gendr_tpu.LookAt()
-    lighting = gendr_tpu.Lighting()
+    transform = gendr_jax.LookAt()
+    lighting = gendr_jax.Lighting()
     transform.set_eyes_from_angles(3.0, 20.0, 180.0)
     mesh = transform(lighting(mesh))
     fv = mesh.face_vertices
@@ -49,7 +48,7 @@ def main():
 
     dists = SIGMOID_FUNCTIONS[:2] if args.quick else SIGMOID_FUNCTIONS
     for dist_id, (dist_func, dist_shape) in enumerate(dists):
-        renderer = gendr_tpu.GenDR(
+        renderer = gendr_jax.GenDR(
             image_size=args.resolution, anti_aliasing=True,
             dist_func=dist_func, dist_shape=dist_shape, dist_shift=0.,
             dist_eps=dist_eps, aggr_alpha_func='probabilistic',

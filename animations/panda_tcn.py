@@ -17,7 +17,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 import jax.numpy as jnp
 
-import gendr_tpu
+import gendr_jax
 from animations.common import (T_CONORMS, textured_scene, triangle_scene,
                                composite_on_background, save_png)
 
@@ -34,16 +34,15 @@ def main():
     ap.add_argument('--backend', type=str, default=None)
     args = ap.parse_args()
 
-    backend = args.backend or (
-        'pallas' if jax.devices()[0].platform == 'tpu' else 'xla')
+    backend = args.backend  # None: the platform's own raster backend
 
     if args.triangle:
         mesh = triangle_scene()
     else:
         mesh = textured_scene(5)
-        transform = gendr_tpu.LookAt()
+        transform = gendr_jax.LookAt()
         transform.set_eyes_from_angles(3.0, 20.0, 180.0)
-        mesh = transform(gendr_tpu.Lighting()(mesh))
+        mesh = transform(gendr_jax.Lighting()(mesh))
     fv = mesh.face_vertices
     tex = mesh.face_textures
 
@@ -53,7 +52,7 @@ def main():
                 ('aczel_alsina', None)]
         log2_ps = np.arange(-4, 4, 1.0 if args.quick else 0.025)
         for tcn_id, (tcn, _) in enumerate(tcns):
-            renderer = gendr_tpu.GenDR(
+            renderer = gendr_jax.GenDR(
                 image_size=args.resolution, anti_aliasing=True,
                 dist_func='uniform', dist_shape=0., dist_shift=0.,
                 aggr_alpha_func=tcn, aggr_alpha_t_conorm_p=1.0,
@@ -76,7 +75,7 @@ def main():
     log_taus = np.arange(-6, 1, 1.0 if args.quick else 0.025)
     tcns = T_CONORMS[:2] if args.quick else T_CONORMS
     for tcn_id, (tcn, p) in enumerate(tcns):
-        renderer = gendr_tpu.GenDR(
+        renderer = gendr_jax.GenDR(
             image_size=args.resolution, anti_aliasing=True,
             dist_func='uniform', dist_shape=0., dist_shift=0.,
             aggr_alpha_func=tcn, aggr_alpha_t_conorm_p=p,

@@ -16,8 +16,8 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 import jax
 import jax.numpy as jnp
 
-from gendr_tpu import config as C
-from gendr_tpu.ops import tconorms as T
+from gendr_jax import config as C
+from gendr_jax.ops import tconorms as T
 
 
 def surface(name, p=0.0, n=65):

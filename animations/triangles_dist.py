@@ -18,7 +18,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
 
 import jax
 
-import gendr_tpu
+import gendr_jax
 from animations.common import (SIGMOID_FUNCTIONS, triangle_scene,
                                composite_on_background, save_png)
 
@@ -33,8 +33,7 @@ def main():
     ap.add_argument('--backend', type=str, default=None)
     args = ap.parse_args()
 
-    backend = args.backend or (
-        'pallas' if jax.devices()[0].platform == 'tpu' else 'xla')
+    backend = args.backend  # None: the platform's own raster backend
     mesh = triangle_scene()
 
     # tau sweep: 10^[-5, 2) step .025 (triangles_dist.py:48-74); --quick
@@ -48,7 +47,7 @@ def main():
     sweep = SIGMOID_FUNCTIONS[:args.dists] if args.dists \
         else SIGMOID_FUNCTIONS
     for dist_id, (dist_func, dist_shape) in enumerate(sweep):
-        renderer = gendr_tpu.GenDR(
+        renderer = gendr_jax.GenDR(
             image_size=args.resolution, anti_aliasing=True,
             dist_func=dist_func, dist_shape=dist_shape, dist_shift=0.,
             aggr_alpha_func='probabilistic', aggr_alpha_t_conorm_p=0.,

@@ -17,6 +17,16 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 
 
+def use_compile_cache():
+    """Keep compiled programs where $JAX_COMPILATION_CACHE_DIR says (JAX
+    reads it itself), else in the checkout's .jax_cache/."""
+    if not os.environ.get('JAX_COMPILATION_CACHE_DIR'):
+        import jax
+        jax.config.update('jax_compilation_cache_dir', os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            '.jax_cache'))
+
+
 def iou_loss(predict, target, reduce='mean'):
     """1 - IoU per batch element (opt_shape.py:20-24 / opt_camera.py:18-22:
     the two scripts differ only in the final reduction)."""
@@ -65,8 +75,8 @@ def load_or_make_mesh(model_obj, data_dir=None):
     """Load an OBJ by path; fall back to procedural stand-ins for the
     reference's binary assets (sphere_642/1352 regenerate exactly by
     tessellation class; airplane/teapot fall back to a cube)."""
-    from gendr_tpu import data
-    from gendr_tpu.geometry import obj_io
+    from gendr_jax import data
+    from gendr_jax.geometry import obj_io
 
     name = os.path.basename(model_obj)
     candidates = [model_obj]
@@ -80,6 +90,6 @@ def load_or_make_mesh(model_obj, data_dir=None):
         v, f = data.sphere(n)
         return jnp.asarray(v), jnp.asarray(f)
     v, f = data.test_meshes('cube')
-    print(f'[gendr_tpu] asset {model_obj} not found; using procedural cube',
+    print(f'[gendr_jax] asset {model_obj} not found; using procedural cube',
           file=sys.stderr)
     return jnp.asarray(v), jnp.asarray(f)

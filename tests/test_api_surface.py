@@ -4,15 +4,15 @@ import numpy as np
 import pytest
 import jax.numpy as jnp
 
-import gendr_tpu
-from gendr_tpu import config as C
-from gendr_tpu.raster.render import render
+import gendr_jax
+from gendr_jax import config as C
+from gendr_jax.raster.render import render
 from tests.test_render import random_scene
 
 
 def test_gendr_defaults_match_reference():
     """Constructor defaults mirror gendr/renderer.py:13-36."""
-    r = gendr_tpu.GenDR()
+    r = gendr_jax.GenDR()
     assert r.image_size == 256
     assert list(r.background_color) == [0, 0, 0]
     assert r.anti_aliasing is False
@@ -52,14 +52,14 @@ def test_enum_int_duality():
 
 def test_anti_aliasing_pools_2x():
     rng = np.random.RandomState(1)
-    v, f = __import__('gendr_tpu.data', fromlist=['data']).icosphere(1)
-    mesh = gendr_tpu.Mesh.create(v * 0.5, f)
-    t = gendr_tpu.LookAt()
+    v, f = __import__('gendr_jax.data', fromlist=['data']).icosphere(1)
+    mesh = gendr_jax.Mesh.create(v * 0.5, f)
+    t = gendr_jax.LookAt()
     t.set_eyes_from_angles(2.732, 30.0, 0.0)
     mesh = t(mesh)
-    r_aa = gendr_tpu.GenDR(image_size=16, anti_aliasing=True,
+    r_aa = gendr_jax.GenDR(image_size=16, anti_aliasing=True,
                            dist_func='uniform', dist_scale=3e-2)
-    r2x = gendr_tpu.GenDR(image_size=32, anti_aliasing=False,
+    r2x = gendr_jax.GenDR(image_size=32, anti_aliasing=False,
                           dist_func='uniform', dist_scale=3e-2)
     img_aa = np.asarray(r_aa(mesh))
     img_2x = np.asarray(r2x(mesh))
@@ -101,7 +101,7 @@ def test_double_side_backface():
                      [0.5, -0.5, 2.0]]], np.float32)
     fv = tri.reshape(1, 1, 9)
     # make sure winding is actually backfacing for the test premise
-    from gendr_tpu.raster import geometry as G
+    from gendr_jax.raster import geometry as G
     xy = tuple(jnp.float32(fv[0, 0, i]) for i in (0, 1, 3, 4, 6, 7))
     front = bool(G.face_frontside(xy))
     tex = np.ones((1, 1, 1, 3), np.float32)
@@ -119,12 +119,12 @@ def test_double_side_backface():
 
 
 def test_forward_tensors_matches_mesh_call():
-    v, f = __import__('gendr_tpu.data', fromlist=['data']).icosphere(1)
-    mesh = gendr_tpu.Mesh.create(v * 0.5, f)
-    t = gendr_tpu.LookAt()
+    v, f = __import__('gendr_jax.data', fromlist=['data']).icosphere(1)
+    mesh = gendr_jax.Mesh.create(v * 0.5, f)
+    t = gendr_jax.LookAt()
     t.set_eyes_from_angles(2.732, 30.0, 0.0)
     mesh = t(mesh)
-    r = gendr_tpu.GenDR(image_size=16)
+    r = gendr_jax.GenDR(image_size=16)
     a = np.asarray(r(mesh))
     b = np.asarray(r.forward_tensors(mesh.face_vertices, mesh.face_textures))
     np.testing.assert_allclose(a, b)

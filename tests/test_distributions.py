@@ -10,8 +10,8 @@ import pytest
 import scipy.stats as st
 from scipy.special import gammainc, erfc
 
-from gendr_tpu import config as C
-from gendr_tpu.ops import distributions as D
+from gendr_jax import config as C
+from gendr_jax.ops import distributions as D
 
 
 def ref_eval(fid, xs, scale=1.0, shape=0.0, shift=0.0, fn='cdf'):

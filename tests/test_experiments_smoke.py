@@ -23,7 +23,7 @@ def run_script(path, argv):
 @pytest.mark.slow
 def test_opt_shape_quick(tmp_path):
     # procedural 12-face cube target: the smoke test exercises the whole
-    # pipeline; convergence quality is validated on TPU runs
+    # pipeline; convergence quality needs full-length runs
     mod = run_script('experiments/opt_shape.py',
                      ['--quick', '-ni', '4', '-is', '24', '--chain', '4',
                       '--model_obj', 'proc_cube.obj',

@@ -5,9 +5,9 @@ import math
 import numpy as np
 import jax.numpy as jnp
 
-from gendr_tpu import data
-from gendr_tpu.geometry import core, lighting, losses, transforms as T
-from gendr_tpu.geometry.mesh import Mesh
+from gendr_jax import data
+from gendr_jax.geometry import core, lighting, losses, transforms as T
+from gendr_jax.geometry.mesh import Mesh
 
 
 class TestTransforms:
@@ -61,9 +61,9 @@ class TestTransforms:
 
     def test_look_at_closure_constant_matches_arg(self):
         """jit with closure-captured eyes must equal jit with eyes as an
-        argument.  Regression net for a remote-TPU backend bug where the
-        constant-folded rotation-basis subgraph came back corrupted;
-        look_at now routes its inputs through an optimization_barrier."""
+        argument: the constant-folded rotation-basis subgraph must agree
+        with the runtime one (a remote accelerator backend once returned it
+        corrupted)."""
         import jax
         rng = np.random.RandomState(3)
         v = jnp.asarray(rng.randn(4, 50, 3) * 0.3, jnp.float32)
@@ -74,7 +74,7 @@ class TestTransforms:
         got = jax.jit(lambda a: T.perspective(T.look_at(a, eyes), 15.0))(v)
         np.testing.assert_allclose(np.asarray(ref), np.asarray(got),
                                    atol=1e-5)
-        # gradients flow through the barrier
+        # gradients flow through the basis
         g = jax.grad(lambda e: float(0) + jnp.sum(
             T.look_at(v, e) ** 2))(eyes)
         assert np.isfinite(np.asarray(g)).all()
@@ -191,7 +191,7 @@ class TestLookAndProjectionClasses:
                                    np.asarray(v[..., 2]) + 2, atol=1e-5)
 
     def test_look_class(self):
-        from gendr_tpu import data as D2
+        from gendr_jax import data as D2
         v, f = D2.icosphere(1)
         mesh = Mesh.create(v, f)
         t = T.Look(camera_direction=[0, 0, 1], eye=[0, 0, -3])
@@ -201,7 +201,7 @@ class TestLookAndProjectionClasses:
     def test_projection_class(self):
         P = np.zeros((1, 3, 4), np.float32)
         P[0, 0, 0] = P[0, 1, 1] = P[0, 2, 2] = 1.0
-        from gendr_tpu import data as D2
+        from gendr_jax import data as D2
         v, f = D2.icosphere(1)
         mesh = Mesh.create(v * 100 + np.array([256, 256, 3]), f)
         t = T.Projection(P, orig_size=512)

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gendr_tpu.geometry import obj_io
-from gendr_tpu.native import objparse
+from gendr_jax.geometry import obj_io
+from gendr_jax.native import objparse
 
 
 OBJ_TEXT = """# comment

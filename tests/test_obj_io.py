@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from gendr_tpu import data
-from gendr_tpu.geometry import obj_io
-from gendr_tpu.geometry.mesh import Mesh
+from gendr_jax import data
+from gendr_jax.geometry import obj_io
+from gendr_jax.geometry.mesh import Mesh
 
 
 def test_save_load_roundtrip(tmp_path):

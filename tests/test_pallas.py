@@ -1,14 +1,14 @@
-"""Pallas kernel vs XLA backend equivalence (interpret mode on CPU)."""
+"""Pallas/Triton kernels vs the XLA backend (interpret mode on the CPU)."""
 
 import numpy as np
 import pytest
 import jax
 import jax.numpy as jnp
 
-from gendr_tpu import config as C
-from gendr_tpu.raster import pallas_backend as PB
-from gendr_tpu.raster import xla_backend as X
-from gendr_tpu.raster import prep
+from gendr_jax import config as C
+from gendr_jax.raster import pallas_backend as PB
+from gendr_jax.raster import xla_backend as X
+from gendr_jax.raster import prep
 from tests.test_render import random_scene, params_dict
 
 # Module-level jitted entry points (cfg is a hashable frozen dataclass ->
@@ -212,7 +212,8 @@ def _pallas_vs_xla(dist, tcn, p, rgb, extra=None, seed=11):
     got_f, got_t = J_PBA(fv, tex, aux, got, got_ag, g, cfg,
                                         params)
     # rtol 1e-2: the parametric t-conorm folds (yager powers etc.) associate
-    # differently in the butterfly vs the XLA tree reduction.  Budget 8%:
+    # differently in the kernel's serial fold vs the XLA tree reduction.
+    # Budget 8%:
     # compact-support PDFs (uniform/cubic_hermite/wigner) are DISCONTINUOUS
     # at the support edge, so a one-ulp distance difference between the two
     # backends flips that pair's pdf between 0 and O(1/tau), and each
@@ -243,7 +244,7 @@ def test_pallas_dist_matrix(dist, rgb):
 @pytest.mark.parametrize('tcn,p', MATRIX_TCNS[1:])
 def test_pallas_dist_tcn_matrix(dist, tcn, p):
     """All 18 distribution ids x the parametric t-conorms (yager p=2,
-    hamacher p=0.5, frank p=2) through the generic butterfly fold path.
+    hamacher p=0.5, frank p=2) through the kernel's serial fold.
     Default tier:
     one compact-support + one series CDF per t-conorm (the fold logic is
     dist-independent); full cross product in the exhaustive tier."""
@@ -282,7 +283,7 @@ def test_pallas_dist_squared_exotic():
 
 def test_pallas_max_tconorm_finite_difference():
     """Self-consistency of the pallas path for the max t-conorm."""
-    from gendr_tpu.raster.render import render
+    from gendr_jax.raster.render import render
     rng = np.random.RandomState(7)
     fv = random_scene(rng, B=1, F=5)
     tex = np.ones((1, 5, 1, 3), np.float32)
@@ -318,18 +319,15 @@ def test_pallas_max_tconorm_finite_difference():
 
 def test_pallas_max_tconorm_agreement_over_seeds():
     """Distribution-over-seeds check of pallas-vs-XLA max-t-conorm
-    gradients.  Both backends now run the SAME shared pair math
-    (raster/pairmath.py), so on hardware — where the Mosaic kernel and the
-    XLA program compile f32 chains identically — agreement is exact
-    (asserted by tools/tpu_selfcheck.py; measured 10/10 seeds bitwise on a
-    v5e).  Under the CPU test harness the kernel runs in INTERPRET mode
-    (op-by-op, no fused multiply-adds) while the XLA backend compiles with
-    FMA contraction, so the two paths differ by an ulp per affine chain;
-    exact-equality winner detection (cu:574-575) then reassigns a few
-    pixels between faces.  What must survive that noise: per-seed bulk
-    agreement, a near-1 gradient direction (winner swaps preserve the
-    directional derivative), and no seed-systematic divergence."""
-    from gendr_tpu.raster.render import render
+    gradients.  Both backends run the SAME shared pair math
+    (raster/pairmath.py), but the interpreted kernel and the XLA backend
+    are separate programs whose f32 chains may contract into FMAs
+    differently, so they differ by an ulp per affine chain; exact-equality
+    winner detection (cu:574-575) then reassigns a few pixels between
+    faces.  What must survive that noise: per-seed bulk agreement, a
+    near-1 gradient direction (winner swaps preserve the directional
+    derivative), and no seed-systematic divergence."""
+    from gendr_jax.raster.render import render
     tex = np.ones((1, 5, 1, 3), np.float32)
     kw = dict(image_size=16, dist_func='logistic', dist_scale=0.1,
               aggr_alpha_func='max', aggr_rgb_func='hard', face_chunk=8)
@@ -363,17 +361,14 @@ def test_pallas_max_tconorm_agreement_over_seeds():
     # recomputes frag in a separately-jitted program; an ulp of fusion
     # difference reassigns a pixel between nearly-equal faces).  The sharp
     # per-element claims live in test_pallas_max_tconorm_finite_difference
-    # (each backend vs its own loss) and in tools/tpu_selfcheck.py, where
-    # both backends compile identically and agreement is bitwise.
+    # (each backend vs its own loss).
     assert fracs.min() > 0.55, fracs       # bulk of elements essentially equal
     assert fracs.mean() > 0.70, fracs
     # isolated swaps stay bounded by roughly one pixel's own contribution
     # (empirically <= ~0.7x the gradient scale on this harness — a single
     # high-leverage pixel reassigned between faces; the exact landing spots
-    # shift whenever XLA:CPU's fusion layout changes, e.g. the r5
-    # optimization_barrier on the param vector moved one seed from 0.3 to
-    # 0.7), while a SYSTEMATIC divergence would push the median and every
-    # seed up together
+    # shift whenever XLA:CPU's fusion layout changes), while a SYSTEMATIC
+    # divergence would push the median and every seed up together
     assert np.median(worsts) < 0.35, worsts
     assert worsts.max() < 1.0, worsts
     # the gradient DIRECTION must be essentially identical on every seed —
@@ -412,7 +407,7 @@ def test_pallas_vertex_textures(rgb):
 
 def test_pallas_render_api():
     """End-to-end through render(backend='pallas') incl. custom VJP."""
-    from gendr_tpu.raster.render import render
+    from gendr_jax.raster.render import render
     rng = np.random.RandomState(3)
     fv = random_scene(rng, B=1, F=7)
     tex = np.ones((1, 7, 1, 3), np.float32)
@@ -490,41 +485,16 @@ def test_pallas_obtuse_triangle_parity():
 
 
 class TestFallbackEnvelope:
-    """The pallas kernels' documented envelope: surface softmax-RGB TS up
-    to SOFTMAX_TS_CAP (=1024; TS <= 36 unrolled one-hot, above it blocked
-    texel streaming), any TS for hard RGB, and 128-aligned pixel tilings
-    on real TPUs; outside it the render falls back to the XLA backend per
-    cfg.on_fallback."""
-
-    def test_reasons(self):
-        cfg = C.RenderConfig.create(image_size=256, backend='pallas')
-        ok_tex = jnp.zeros((1, 4, 36, 3))
-        blocked_tex = jnp.zeros((1, 4, 256, 3))  # texture_res 16
-        huge_tex = jnp.zeros((1, 4, 1089, 3))  # texture_res 33 > cap
-        assert not PB.fallback_reason(cfg, ok_tex)
-        assert not PB.fallback_reason(cfg, blocked_tex)
-        assert 'texture_res' in PB.fallback_reason(cfg, huge_tex)
-        # hard RGB samples textures in a deferred winner-id epilogue, so
-        # arbitrarily large surface textures stay on the pallas path
-        cfg_hard = C.RenderConfig.create(image_size=256, backend='pallas',
-                                         aggr_rgb_func='hard')
-        assert not PB.fallback_reason(cfg_hard, huge_tex)
-        assert not PB.fallback_reason(
-            cfg_hard, jnp.zeros((1, 4, 256, 3)))  # texture_res 16
-        # image-size tiling only constrains real TPUs; the static predicate
-        # is still testable
-        assert PB._tiles_feasible(768, 256)
-        assert PB._tiles_feasible(256, 256)
-        assert not PB._tiles_feasible(767, 256)
+    """The kernels' texture envelope: any surface texture size for both RGB
+    modes (softmax gathers texels in-kernel; hard RGB samples in an XLA
+    epilogue keyed on the winner id; both sum texture gradients in the
+    backward kernel, in TEXEL_BLOCK one-hot blocks), with nothing to fall
+    back from."""
 
     def test_hard_rgb_cap_texture_inkernel_parity(self):
-        """TS=25 (== HARD_INKERNEL_TS_CAP, e.g. the panda's texture_res=5)
-        hard RGB stays on the IN-KERNEL path — winner color carried per
-        lane, texture grads winner-id-masked — and matches the XLA backend
-        fwd + bwd."""
-        assert PB._hard_inkernel(
-            C.RenderConfig.create(aggr_rgb_func='hard', backend='pallas'),
-            25)
+        """TS=25 (the panda's texture_res=5) hard RGB matches the XLA
+        backend fwd + bwd: winner colour gathered in the epilogue, texture
+        grads summed in-kernel per winning face and texel."""
         rng = np.random.RandomState(11)
         fv = random_scene(rng, B=2, F=9).reshape(2, 9, 9)
         tex = rng.rand(2, 9, 25, 3).astype(np.float32)
@@ -532,7 +502,7 @@ class TestFallbackEnvelope:
             image_size=16, dist_func='uniform',
             aggr_alpha_func='probabilistic', aggr_rgb_func='hard',
             double_side=True, face_chunk=8, pixel_tile=64,
-            backend='pallas', on_fallback='error')
+            backend='pallas')
         params = params_dict(dist_scale=3e-2)
         fvj, texj = jnp.asarray(fv), jnp.asarray(tex)
         finfo = prep.faces_info(fvj)
@@ -551,8 +521,8 @@ class TestFallbackEnvelope:
                                    atol=1e-5, rtol=1e-4)
 
     def test_hard_rgb_big_texture_pallas_parity(self):
-        """TS=49 hard RGB runs the pallas kernels (no fallback) and matches
-        the XLA backend fwd + bwd (texture grads routed per sampled texel,
+        """TS=49 hard RGB runs the pallas kernels and matches the XLA
+        backend fwd + bwd (texture grads routed per sampled texel,
         backward_sample_texture cu:197-207)."""
         rng = np.random.RandomState(4)
         fv = random_scene(rng, B=2, F=9).reshape(2, 9, 9)
@@ -561,7 +531,7 @@ class TestFallbackEnvelope:
             image_size=16, dist_func='uniform',
             aggr_alpha_func='probabilistic', aggr_rgb_func='hard',
             double_side=True, face_chunk=8, pixel_tile=64,
-            backend='pallas', on_fallback='error')
+            backend='pallas')
         params = params_dict(dist_scale=3e-2)
         fvj, texj = jnp.asarray(fv), jnp.asarray(tex)
         finfo = prep.faces_info(fvj)
@@ -582,14 +552,12 @@ class TestFallbackEnvelope:
     @pytest.mark.parametrize('ts', [
         49, pytest.param(256, marks=pytest.mark.exhaustive)])
     def test_softmax_big_texture_blocked_parity(self, ts):
-        """Softmax RGB with surface TS > TEXEL_UNROLL_CAP runs the BLOCKED
-        texel-streaming pallas path (fori_loop over TEXEL_BLOCK texel
-        slices of the packed slab; texture grads accumulated through
-        8-aligned dynamic accumulator writes) and matches the XLA backend
-        fwd + bwd.  TS=256 == the reference's load_obj texture_res max
-        (load_obj.py:33-106); it previously fell back to the XLA scan."""
-        assert PB._tex_blocked(
-            C.RenderConfig.create(backend='pallas'), ts)
+        """Softmax RGB with surface TS > TEXEL_BLOCK sums its texture
+        gradients over several one-hot texel blocks (TS=49: two blocks,
+        the second with a masked tail) and matches the XLA backend fwd +
+        bwd.  TS=256 == the reference's load_obj texture_res max
+        (load_obj.py:33-106)."""
+        assert ts > PB.TEXEL_BLOCK
         # seed 8: no pixel sits on a depth crossing where the near-hard
         # softmax winner flips with rounding (seed 5's scene has one, and
         # jitting the SAME XLA forward moves that pixel by up to 0.9 —
@@ -601,7 +569,7 @@ class TestFallbackEnvelope:
             image_size=16, dist_func='logistic',
             aggr_alpha_func='probabilistic', aggr_rgb_func='softmax',
             double_side=True, face_chunk=8, pixel_tile=64,
-            backend='pallas', on_fallback='error')
+            backend='pallas')
         params = params_dict(dist_scale=3e-2)
         fvj, texj = jnp.asarray(fv), jnp.asarray(tex)
         finfo = prep.faces_info(fvj)
@@ -619,33 +587,12 @@ class TestFallbackEnvelope:
         np.testing.assert_allclose(np.asarray(got_t), np.asarray(want_t),
                                    atol=1e-5, rtol=1e-4)
 
-    def test_error_mode_raises(self):
-        from gendr_tpu.raster.render import render
-        rng = np.random.RandomState(0)
-        fv = random_scene(rng, B=1, F=3)
-        tex = np.ones((1, 3, 1089, 3), np.float32)  # R=33 > envelope
-        with pytest.raises(ValueError, match='on_fallback'):
-            render(fv, tex, image_size=16, backend='pallas',
-                   on_fallback='error')
-
-    def test_warn_mode_renders_via_xla(self):
-        from gendr_tpu.raster.render import render
-        rng = np.random.RandomState(0)
-        fv = random_scene(rng, B=1, F=3)
-        tex = np.ones((1, 3, 1089, 3), np.float32)
-        with pytest.warns(RuntimeWarning, match='falling back'):
-            got = render(fv, tex, image_size=16, backend='pallas',
-                         on_fallback='warn')
-        want = render(fv, tex, image_size=16, backend='xla')
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   atol=1e-6)
-
 
 @pytest.mark.parametrize('backend', ['xla', 'pallas'])
 def test_alpha_only_channels(backend):
     """channels='alpha' returns the identical alpha channel and background
     RGB (a documented silhouette fast path, not in the reference)."""
-    from gendr_tpu.raster.render import render
+    from gendr_jax.raster.render import render
     rng = np.random.RandomState(6)
     fv = random_scene(rng, B=1, F=9)
     tex = np.ones((1, 9, 1, 3), np.float32)
@@ -668,38 +615,6 @@ def test_alpha_only_channels(backend):
     np.testing.assert_allclose(g_al, g_full, atol=1e-5, rtol=1e-4)
 
 
-def test_hbm_hitlist_path_matches_prefetch(monkeypatch):
-    """Large B*tiles*chunks hit-list tables move from SMEM scalar prefetch
-    to HBM + per-program DMA (IDS_SMEM_CAP_BYTES; the 512^2 x 20480-face
-    SMEM overflow).  Forcing the HBM path on a small scene must reproduce
-    the prefetch path bitwise: same ids, same fold order, only the id
-    transport differs.  Fresh jit wrappers (not the module singletons):
-    the placement is chosen at trace time from the monkeypatched constant,
-    which is not part of the jit cache key."""
-    rng = np.random.RandomState(9)
-    fv = jnp.asarray(random_scene(rng, B=2, F=13).reshape(2, 13, 9))
-    tex = jnp.asarray(rng.rand(2, 13, 1, 3).astype(np.float32))
-    cfg = _cfg(CONFIGS[1])  # logistic x probabilistic x softmax
-    params = params_dict(dist_scale=3e-2,
-                         background_color=np.array([0.1, 0.2, 0.3]))
-    finfo = prep.faces_info(fv)
-    g = jnp.asarray(rng.randn(2, 4, 16, 16).astype(np.float32))
-
-    def run():
-        f = jax.jit(PB.forward, static_argnums=3)
-        b = jax.jit(PB.backward, static_argnums=6)
-        soft, aggrs = f(fv, tex, finfo, cfg, params)
-        gf, gt = b(fv, tex, finfo, soft, aggrs, g, cfg, params)
-        return map(np.asarray, (soft, gf, gt))
-
-    want = run()
-    assert PB.IDS_SMEM_CAP_BYTES > 0  # sanity: default mode is prefetch
-    monkeypatch.setattr(PB, 'IDS_SMEM_CAP_BYTES', 0)
-    got = run()
-    for w, o in zip(want, got):
-        np.testing.assert_array_equal(w, o)
-
-
 def test_bbox_gate_kills_phantom_sliver_coverage():
     """Near-degenerate sliver faces blow up the fp32 barycentric inverse:
     far pixels can read all-positive w ("inside") and contribute phantom
@@ -708,8 +623,8 @@ def test_bbox_gate_kills_phantom_sliver_coverage():
     (pairmath P_MARGIN) must zero every pair whose pixel lies outside the
     vertex-derived bbox + probability-radius margin — independent of how
     badly the barycentric algebra misbehaves."""
-    from gendr_tpu.raster import pack
-    from gendr_tpu.raster import pairmath as PM
+    from gendr_jax.raster import pack
+    from gendr_jax.raster import pairmath as PM
 
     # a sliver: two vertices 1e-7 apart, third collinear to fp32 noise
     fvert = np.array([[0.10, 0.10, 2.0,
@@ -745,131 +660,139 @@ def test_bbox_gate_kills_phantom_sliver_coverage():
     assert float(np.asarray(q['frag'])) > 1e-6
 
 
+
+
 # ---------------------------------------------------------------------------
-# Per-tile face compaction (pack.compact_plan + appended-chunk hit lists)
+# Tiling, image sizes, bands and the backend decision
 # ---------------------------------------------------------------------------
 
-def _compact_scene(seed=0, level=1):
-    """A scene that passes the compaction gates at 64^2 (level-1 sphere:
-    80 faces -> Fp=128 <= 8*T with 16x16 tiles)."""
-    from gendr_tpu import data
-    from gendr_tpu.geometry import core, transforms as T
-    rng = np.random.RandomState(seed)
+def _sphere_scene(level=1, B=1):
+    """A projected icosphere (10 * 4^level faces) seen from the reference's
+    default camera."""
+    from gendr_jax import data
+    from gendr_jax.geometry import core, transforms as T
     v, f = data.icosphere(level)
-    verts = jnp.asarray(v)[None] * 0.8
+    verts = jnp.tile(jnp.asarray(v)[None] * 0.8, (B, 1, 1))
     eye = T.get_points_from_angles(2.732, 30.0, 45.0)
     verts = T.perspective(T.look_at(verts, eye), 30.0)
-    return core.face_vertices(verts, jnp.asarray(f)[None]).reshape(1, -1, 9)
+    return core.face_vertices(
+        verts, jnp.tile(jnp.asarray(f)[None], (B, 1, 1))).reshape(B, -1, 9)
 
 
-@pytest.mark.parametrize('tcn,rgb,ts', [
-    ('probabilistic', 'hard', 1),
-    # TS=36: above the hard-RGB in-kernel cap (deferred winner-id
-    # epilogues) but at the compaction TS gate (streamed textures >36
-    # disable compaction — their texel rows blow up the appended slabs)
-    ('probabilistic', 'hard', 36),
-    ('max', 'hard', 1),                # exact-equality winner detection
-    ('einstein', 'softmax', 1),
-    ('hard', 'hard', 1),
+@pytest.mark.parametrize('image_size', [17, 100, 250])
+def test_any_image_size_matches_xla(image_size):
+    """Image sizes that are no multiple of the tile: the last row and column
+    of tiles overhang the image and the kernels mask the overhang, forward
+    and backward (softmax RGB, vertex colours).  Vertex colours keep the
+    gradient well conditioned: a surface texel index computed from clipped
+    barycentrics of outside pixels (cu:178-185) is decided by rounding, so
+    two compilations legitimately route some texel gradients differently
+    at soft outside pixels."""
+    fv = _sphere_scene(level=1)
+    F = fv.shape[1]
+    tex = jnp.asarray(np.random.RandomState(4).rand(1, F, 3, 3)
+                      .astype(np.float32))
+    kw = dict(image_size=image_size, dist_func='logistic', dist_scale=2e-2,
+              aggr_alpha_func='probabilistic', aggr_rgb_func='softmax',
+              texture_type='vertex', face_chunk=16)
+    w = jnp.asarray(np.random.RandomState(5).randn(
+        1, 4, image_size, image_size).astype(np.float32))
+
+    def run(backend):
+        from gendr_jax.raster.render import render
+
+        def loss(v, t):
+            img = render(v, t, backend=backend, **kw)
+            return jnp.sum(img * w), img
+
+        (_, img), grads = jax.jit(jax.value_and_grad(
+            loss, argnums=(0, 1), has_aux=True))(fv, tex)
+        return [np.asarray(x) for x in (img,) + grads]
+
+    got, want = run('pallas'), run('xla')
+    np.testing.assert_allclose(got[0], want[0], atol=1e-4, rtol=1e-3)
+    _assert_mostly_close(got[1], want[1], atol=2e-4, rtol=2e-3)
+    _assert_mostly_close(got[2], want[2], atol=2e-4, rtol=2e-3)
+
+
+@pytest.mark.parametrize('image_size,pixel_tile,want', [
+    (256, 0, (16, 8)),    # the default: 128 pixels, 16 wide
+    (250, 0, (16, 8)),    # overhanging tiles, same shape
+    (8, 0, (8, 16)),      # narrow image: the width shrinks, the count holds
+    (16, 64, (16, 4)),
 ])
-def test_compacted_render_matches_xla(tcn, rgb, ts):
-    """The compacted pallas path (per-tile appended slot chunks) must
-    reproduce the XLA twin: forward images and vertex/texture gradients.
-    Asserts compaction actually triggered (packed grew past Fp) so the
-    gate can never silently shelve this coverage."""
-    from gendr_tpu.raster.render import render
-    rng = np.random.RandomState(3)
-    fv = _compact_scene()
-    F = fv.shape[2 - 1]
-    tex = jnp.asarray(rng.rand(1, F, ts, 3).astype(np.float32))
-    kw = dict(image_size=64, dist_func='logistic', dist_scale=3e-3,
-              aggr_alpha_func=tcn, aggr_rgb_func=rgb)
-    if tcn == 'hard':
-        kw['dist_func'] = 'hard'
-
-    cfg_kw = {k: v for k, v in kw.items() if k != 'dist_scale'}
-    cfg = C.RenderConfig.create(backend='pallas', **cfg_kw)
-    params = params_dict(dist_scale=3e-3)
-    aux = PB._prepass(fv, tex, cfg, params)
-    Fp = aux['perm'].shape[1]
-    assert aux['packed'].shape[2] > Fp, 'compaction gate did not trigger'
-
-    def loss(v_, t_, backend):
-        img = render(v_, t_, backend=backend, **kw)
-        return jnp.sum(img[:, 3] ** 2) * 0.5 + jnp.sum(img[:, :3]) * 0.1
-
-    outs = {}
-    for backend in ('xla', 'pallas'):
-        img = jax.jit(lambda a, b, bk=backend: render(
-            a, b, backend=bk, **kw))(fv, tex)
-        gf, gt = jax.jit(jax.grad(
-            lambda a, b, bk=backend: loss(a, b, bk),
-            argnums=(0, 1)))(fv, tex)
-        outs[backend] = tuple(np.asarray(x) for x in (img, gf, gt))
-    ix, gx, tx = outs['xla']
-    ip, gp, tp_ = outs['pallas']
-    assert np.abs(ix - ip).max() < 2e-3
-    # max: exact-equality winner detection flips a few pairs under the CPU
-    # harness (interpret mode has no FMA contraction, the XLA twin does);
-    # on hardware the selfcheck pins max bitwise.  Other folds: 0.99.
-    bar = 0.98 if tcn == 'max' else 0.99
-    assert np.isclose(gx, gp, atol=5e-4, rtol=5e-3).mean() > bar
-    assert np.isclose(tx, tp_, atol=5e-4, rtol=5e-3).mean() > bar
+def test_tile_shape_and_grid(image_size, pixel_tile, want):
+    """The wrapper's choice of tile: a power of two of pixels, at most 16
+    wide; the grid is ceil-divided, so tiles cover the image with at most
+    one overhanging row and column."""
+    cfg = C.RenderConfig.create(image_size=image_size, pixel_tile=pixel_tile)
+    assert PB._tile_shape(cfg) == want
+    tiles = PB._Tiles(cfg, image_size)
+    tw, th = want
+    assert tiles.tx_n == -(-image_size // tw)
+    assert tiles.ty_n == -(-image_size // th)
+    assert (tiles.tx_n - 1) * tw < image_size <= tiles.tx_n * tw
+    # every image pixel is covered exactly once by the tiles' on-image
+    # pixels, in row-major order
+    seen = np.zeros(image_size * image_size, int)
+    for t in range(tiles.n):
+        _, _, inside, pidx = tiles.pixels(jnp.int32(t), jnp.int32(0))
+        seen[np.asarray(pidx)[np.asarray(inside)]] += 1
+    assert (seen == 1).all()
 
 
-def test_compacted_overflow_tiles_fall_back():
-    """Tiles whose hit-octet count exceeds OCT_CAP must keep the original
-    chunk-granular hit list (value-level fallback) and still render
-    correctly.  Triggered by a 384-face cluster squeezed into one corner
-    of a 128^2 image: the cluster tile sees 48 hit octets (> OCT_CAP=16)
-    while the scene still passes the density gate (384 <= 8*64)."""
-    from gendr_tpu.raster.render import render
-    rng = np.random.RandomState(5)
-    F = 384
-    # tiny random triangles clustered near one corner in NDC
-    centers = (rng.rand(F, 1, 2).astype(np.float32) * 0.15
-               + np.array([-0.85, 0.65], np.float32))
-    tri = centers + rng.randn(F, 3, 2).astype(np.float32) * 0.01
-    z = np.full((F, 3, 1), 3.0, np.float32) \
-        + rng.rand(F, 3, 1).astype(np.float32)
-    fv = jnp.asarray(np.concatenate([tri, z], -1).reshape(1, F, 9))
-    tex = jnp.ones((1, F, 1, 3), jnp.float32)
-    kw = dict(image_size=128, dist_func='logistic', dist_scale=3e-3,
-              aggr_alpha_func='probabilistic', aggr_rgb_func='hard')
+def test_pixel_tile_must_be_a_power_of_two():
+    with pytest.raises(ValueError, match='power of two'):
+        PB._tile_shape(C.RenderConfig.create(pixel_tile=96))
 
-    cfg = C.RenderConfig.create(
-        backend='pallas', **{k: v for k, v in kw.items()
-                             if k != 'dist_scale'})
-    params = params_dict(dist_scale=3e-3)
-    aux = PB._prepass(fv, tex, cfg, params)
-    # compaction triggered AND at least one tile overflowed (count > 1)
-    assert aux['packed'].shape[2] > aux['perm'].shape[1]
-    assert int(np.asarray(aux['tile_counts']).max()) > 1
 
-    want = np.asarray(jax.jit(lambda a, b: render(
-        a, b, backend='xla', **kw))(fv, tex))
-    got = np.asarray(jax.jit(lambda a, b: render(
-        a, b, backend='pallas', **kw))(fv, tex))
-    assert np.abs(want - got).max() < 2e-3
+@pytest.mark.parametrize('platform,want', [
+    ('gpu', 'pallas'), ('cpu', 'xla'), ('rocm', None)])
+def test_platform_backend_decision(monkeypatch, platform, want):
+    """One decision from the platform: the kernels on a GPU, the XLA scan on
+    the CPU, an error anywhere else; an explicit backend overrides it."""
+    from gendr_jax.raster import render as R
+
+    class Dev:
+        pass
+
+    dev = Dev()
+    dev.platform = platform
+    monkeypatch.setattr(R.jax, 'devices', lambda *a: [dev])
+    cfg = C.RenderConfig.create()
+    if want is None:
+        with pytest.raises(RuntimeError, match='no raster backend'):
+            R.backend_name(cfg)
+    else:
+        assert R.backend_name(cfg) == want
+        assert R._get_backend(cfg).__name__.endswith(want + '_backend')
+    assert R.backend_name(C.RenderConfig.create(backend='xla')) == 'xla'
+
+
+def test_interpret_only_on_cpu(monkeypatch):
+    """The kernels interpret on the CPU only; on a GPU they compile."""
+    assert PB._interpret()
+
+    class Dev:
+        platform = 'gpu'
+
+    monkeypatch.setattr(PB.jax, 'devices', lambda *a: [Dev()])
+    assert not PB._interpret()
 
 
 @pytest.mark.parametrize('level', [1, 2])
-def test_compacted_band_render_bitwise(level):
-    """Row-band renders through the compacted path must be bitwise equal
-    to the same rows of the full render (the pixel-sharded contract):
-    per-tile slot layout depends only on the tile rect, so the fold order
-    per pixel is identical.  level=2 (320 faces -> Fp=384) crosses the
-    multi-slab ladder threshold where a band-local tile count would pick
-    a different S than the full render (caught on hardware in r5; the
-    ladder is now full-image-based)."""
-    from gendr_tpu.raster import xla_backend as XB
-    fv = _compact_scene(level=level)
+def test_band_render_bitwise(level):
+    """Row-band renders (the pixel-sharded path) must be bitwise equal to
+    the same rows of the full render: a band's tiles see the same hit lists
+    and fold the same faces in the same order per pixel."""
+    from gendr_jax.raster import xla_backend as XB
+    fv = _sphere_scene(level=level)
     F = fv.shape[1]
     tex = jnp.ones((1, F, 1, 3), jnp.float32)
     cfg = C.RenderConfig.create(
         image_size=64, dist_func='logistic',
         aggr_alpha_func='probabilistic', aggr_rgb_func='hard',
-        backend='pallas')
+        backend='pallas', face_chunk=32)
     params = params_dict(dist_scale=3e-3)
     bg = jnp.zeros((1, 64 * 64, 3), jnp.float32)
 
@@ -878,15 +801,36 @@ def test_compacted_band_render_bitwise(level):
         merged = XB.merge_carries(merged, carry, cfg, params)
         return XB.finalize(merged, cfg)[0]
 
-    carry, aux = PB.forward_partial(fv, tex, cfg, params)
-    assert aux['packed'].shape[2] > aux['perm'].shape[1]
+    carry, _ = PB.forward_partial(fv, tex, cfg, params)
     full = np.asarray(finalize(carry, 64 * 64, bg))
     bands = []
     for r0 in (0, 32):
-        c, aux_b = PB.forward_partial(fv, tex, cfg, params,
-                                      row_band=(r0, 32))
-        assert aux_b['packed'].shape[2] > aux_b['perm'].shape[1]
+        c, _ = PB.forward_partial(fv, tex, cfg, params, row_band=(r0, 32))
         bands.append(np.asarray(finalize(c, 64 * 32, bg[:, :64 * 32])))
     band_img = np.concatenate(bands, axis=2)
     nbit = int((full.view(np.uint32) != band_img.view(np.uint32)).sum())
     assert nbit == 0, f'{nbit} values differ bitwise'
+
+
+@pytest.mark.parametrize('rgb', ['softmax', 'hard'])
+def test_backward_is_deterministic(rgb):
+    """Each face's vertex and texture gradients are summed by one program in
+    a fixed order, with no atomics: two runs agree bitwise."""
+    fv = _sphere_scene(level=1, B=2)
+    F = fv.shape[1]
+    tex = jnp.asarray(np.random.RandomState(6).rand(2, F, 4, 3)
+                      .astype(np.float32))
+    cfg = C.RenderConfig.create(image_size=32, dist_func='gaussian',
+                                aggr_rgb_func=rgb, face_chunk=16,
+                                backend='pallas')
+    params = params_dict(dist_scale=2e-2)
+    soft, aggrs = J_PF(fv, tex, None, cfg, params)
+    g = jnp.asarray(np.random.RandomState(7).randn(*soft.shape)
+                    .astype(np.float32))
+    a = [np.asarray(x) for x in J_PB(fv, tex, None, soft, aggrs, g, cfg,
+                                     params)]
+    b = [np.asarray(x) for x in J_PB(fv, tex, None, soft, aggrs, g, cfg,
+                                     params)]
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+    assert np.abs(a[0]).max() > 0 and np.abs(a[1]).max() > 0

@@ -4,8 +4,8 @@ against independent brute-force oracles."""
 import numpy as np
 import jax.numpy as jnp
 
-from gendr_tpu.raster import prep
-from gendr_tpu.raster import geometry as G
+from gendr_jax.raster import prep
+from gendr_jax.raster import geometry as G
 
 
 def brute_force_closest(tri, p, n=4001):

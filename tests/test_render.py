@@ -6,9 +6,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from gendr_tpu import config as C
-from gendr_tpu.raster import oracle
-from gendr_tpu.raster.render import render
+from gendr_jax import config as C
+from gendr_jax.raster import oracle
+from gendr_jax.raster.render import render
 
 
 def random_scene(rng, B=2, F=13, z0=2.0, spread=1.2):

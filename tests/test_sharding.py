@@ -7,9 +7,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from gendr_tpu import config as C
-from gendr_tpu.parallel import sharding as S
-from gendr_tpu.raster.render import render
+from gendr_jax import config as C
+from gendr_jax.parallel import sharding as S
+from gendr_jax.raster.render import render
 from tests.test_render import random_scene, params_dict
 
 # Eager dispatch of the shard_map programs (and of the unsharded reference

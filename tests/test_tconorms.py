@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from gendr_tpu import config as C
-from gendr_tpu.ops import tconorms as T
+from gendr_jax import config as C
+from gendr_jax.ops import tconorms as T
 
 # (id, valid p)
 CONFIGS = [
@@ -88,10 +88,9 @@ def test_frank_saturation_edge_accuracy():
     The naive powf formulation (cu:506-511, 586-589: ``p**(1-a) - 1``)
     amplifies pow's ~1-ulp rounding near 1 into O(1) *relative* error of
     the difference once 1-a is small — which compounds multiplicatively
-    through the fold in deeply-covered pixels, and made the Pallas and XLA
-    backends disagree visibly on hardware (img_err ~1e-3, grad agreement
-    ~0.978 for frank x compact-support dists).  The expm1 reformulation in
-    tconorms._expm1 must track an f64 evaluation at f32 conditioning.
+    through the fold in deeply-covered pixels, so two compilations of it
+    disagree visibly.  The expm1 reformulation in tconorms._expm1 must
+    track an f64 evaluation at f32 conditioning.
     """
     p = 2.0
     lnp = np.log(np.float64(p))

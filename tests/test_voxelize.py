@@ -3,9 +3,9 @@
 import numpy as np
 import jax.numpy as jnp
 
-from gendr_tpu import data
-from gendr_tpu.geometry import core, voxelize
-from gendr_tpu.geometry.mesh import Mesh
+from gendr_jax import data
+from gendr_jax.geometry import core, voxelize
+from gendr_jax.geometry.mesh import Mesh
 
 
 def test_sphere_is_solid():

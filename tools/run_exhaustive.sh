@@ -1,5 +1,6 @@
 #!/bin/bash
-# Exhaustive-tier runner, sharded into one pytest process per test group.
+# Exhaustive-tier runner (CPU), sharded into one pytest process per test
+# group.
 #
 # Root cause of the sharding: XLA:CPU's in-process compiler segfaults
 # deterministically after ~60-70 jit compilations of the big interpret-mode
@@ -11,10 +12,11 @@
 # fixable from here — so no shard may run more than ~40 kernel-compiling
 # tests.  test_pallas.py (102 tests, 4x18 of them the dist x t-conorm
 # matrix) is split by matrix group; every other file is one shard.
+# The log (default results/exhaustive.log, git-ignored) certifies one commit.
 #
 # Usage: bash tools/run_exhaustive.sh [logfile]
 set -u
-LOG="${1:-results/exhaustive_r04.log}"
+LOG="${1:-results/exhaustive.log}"
 
 # The log is validation evidence for the commit it names: refuse to run on
 # a dirty tree, so the recorded hash is exactly the code that was tested.
@@ -25,6 +27,7 @@ if [ -n "$(git status --porcelain --untracked-files=no)" ]; then
   exit 2
 fi
 
+mkdir -p "$(dirname "$LOG")"
 : > "$LOG"
 overall=0
 echo "# exhaustive tier, sharded — $(git rev-parse --short HEAD) — $(date -u +%FT%TZ)" >> "$LOG"

@@ -1,4 +1,4 @@
-"""End-to-end drive of the public gendr_tpu API (the /verify recipe).
+"""End-to-end drive of the public gendr_jax API (the /verify recipe).
 
 Renders a lit sphere through `GenDR` (composition: renderer(transform(
 lighting(mesh)))), runs an annealed silhouette optimization to >0.9 hard
@@ -21,7 +21,7 @@ import numpy as np  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 import optax  # noqa: E402
 
-import gendr_tpu as G  # noqa: E402
+import gendr_jax as G  # noqa: E402
 
 
 def octasphere(n=3):
@@ -112,7 +112,7 @@ def main():
         raise SystemExit('probe1 FAILED: no ValueError')
     except ValueError:
         print('probe1 ok (ValueError on unknown rgb func)')
-    from gendr_tpu.functional import render as frender
+    from gendr_jax.functional import render as frender
     try:
         frender(mesh0.face_vertices, jnp.ones((1, f.shape[0], 1, 3)),
                 image_size=64, dist_scale=-1.0)
